@@ -3,10 +3,10 @@ from functools import partial
 from typing import Tuple
 
 from common import parse_args, load_experiment_config  # noqa: E402  (sys.path bootstrap)
-from ecnf_tpu.targets.data import load_lj13, FullGraphSample
-from ecnf_tpu.targets.energies import lennard_jones_log_prob
-from ecnf_tpu.training.loop import run_training
-from ecnf_tpu.training.setup import setup_training
+from ecnf_jax.targets.data import load_lj13, FullGraphSample
+from ecnf_jax.targets.energies import lennard_jones_log_prob
+from ecnf_jax.training.loop import run_training
+from ecnf_jax.training.setup import setup_training
 
 
 

@@ -17,13 +17,13 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 
-from ecnf_tpu.cnf.build import build_mlp_cnf
-from ecnf_tpu.cnf.sampling import SolveConfig, sample_cnf, get_log_prob
-from ecnf_tpu.targets.mog import MoGTarget
-from ecnf_tpu.training.loggers import ListLogger
-from ecnf_tpu.training.loop import TrainConfig, run_training
-from ecnf_tpu.training.optim import build_optimizer
-from ecnf_tpu.training.state import TrainingState, init_training_state, make_update_fn
+from ecnf_jax.cnf.build import build_mlp_cnf
+from ecnf_jax.cnf.sampling import SolveConfig, sample_cnf, get_log_prob
+from ecnf_jax.targets.mog import MoGTarget
+from ecnf_jax.training.loggers import ListLogger
+from ecnf_jax.training.loop import TrainConfig, run_training
+from ecnf_jax.training.optim import build_optimizer
+from ecnf_jax.training.state import TrainingState, init_training_state, make_update_fn
 
 
 def setup_mog_training(

@@ -1,4 +1,4 @@
-"""Exact-trace vs K-probe Hutchinson log-density: accuracy/cost on TPU.
+"""Exact-trace vs K-probe Hutchinson log-density: accuracy/cost.
 
 Scores the same configurations under a trained checkpoint with the exact
 trace and with K ∈ {1, 4, 16} Hutchinson probes (the reference is fixed at
@@ -21,9 +21,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ecnf_tpu.cnf.build import build_cnf
-from ecnf_tpu.cnf.sampling import SolveConfig, get_log_prob
-from ecnf_tpu.training.checkpoints import get_latest_checkpoint, restore_checkpoint
+from ecnf_jax.cnf.build import build_cnf
+from ecnf_jax.cnf.sampling import SolveConfig, get_log_prob
+from ecnf_jax.training.checkpoints import get_latest_checkpoint, restore_checkpoint
 
 
 def main():

@@ -13,12 +13,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ecnf_tpu.cnf.build import build_cnf
-from ecnf_tpu.cnf.sampling import SolveConfig, get_log_prob, sample_and_log_prob_cnf
-from ecnf_tpu.targets.data import load_dw4
-from ecnf_tpu.targets.energies import double_well_log_prob
-from ecnf_tpu.training.checkpoints import get_latest_checkpoint, restore_checkpoint
-from ecnf_tpu.training.evaluation import calculate_forward_ess, calculate_reverse_ess
+from ecnf_jax.cnf.build import build_cnf
+from ecnf_jax.cnf.sampling import SolveConfig, get_log_prob, sample_and_log_prob_cnf
+from ecnf_jax.targets.data import load_dw4
+from ecnf_jax.targets.energies import double_well_log_prob
+from ecnf_jax.training.checkpoints import get_latest_checkpoint, restore_checkpoint
+from ecnf_jax.training.evaluation import calculate_forward_ess, calculate_reverse_ess
 
 CKPT_DIR = sys.argv[1] if len(sys.argv) > 1 else "/root/repo/runs/dw4_full/model_checkpoints"
 N_TEST = 256
@@ -41,8 +41,8 @@ def main():
     test_flat = test_pos.reshape(N_TEST, -1)
     feats = test.features[:N_TEST].reshape(N_TEST, -1)
 
-    from ecnf_tpu.training.optim import build_optimizer
-    from ecnf_tpu.training.state import init_training_state
+    from ecnf_jax.training.optim import build_optimizer
+    from ecnf_jax.training.state import init_training_state
 
     cnf = build(None)
     # Must match the training optimizer's state structure (schedule on).

@@ -9,7 +9,7 @@ real test data, integrated through the full log-density solve (the
 estimator runs at every ODE stage, so per-stage variance compounds into
 the integrated delta-log-lik).
 
-Usage: python scripts/hutchpp_study.py [ckpt_dir]  (TPU)
+Usage: python scripts/hutchpp_study.py [ckpt_dir]
 """
 import sys
 import time
@@ -21,12 +21,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ecnf_tpu.cnf.build import build_cnf
-from ecnf_tpu.cnf.sampling import SolveConfig, get_log_prob
-from ecnf_tpu.targets.data import load_lj13
-from ecnf_tpu.training.checkpoints import get_latest_checkpoint, restore_checkpoint
-from ecnf_tpu.training.optim import build_optimizer
-from ecnf_tpu.training.state import init_training_state
+from ecnf_jax.cnf.build import build_cnf
+from ecnf_jax.cnf.sampling import SolveConfig, get_log_prob
+from ecnf_jax.targets.data import load_lj13
+from ecnf_jax.training.checkpoints import get_latest_checkpoint, restore_checkpoint
+from ecnf_jax.training.optim import build_optimizer
+from ecnf_jax.training.state import init_training_state
 
 CKPT_DIR = sys.argv[1] if len(sys.argv) > 1 else "/tmp/lj13_rk4/model_checkpoints"
 N_TEST = 64

@@ -1,6 +1,6 @@
 """Generate the SYNTHETIC QM9-positional stand-in dataset, reproducibly.
 
-Real QM9 requires network egress (`ecnf_tpu/targets/qm9.py` downloads GDB9
+Real QM9 requires network egress (`ecnf_jax/targets/qm9.py` downloads GDB9
 from figshare, parity with the reference's
 `qm9_download_data/data/prepare/qm9.py:28-35`); this container has none.
 This script writes seeded Gaussian stand-ins with the real pipeline's

@@ -7,7 +7,7 @@ per-point log-density deviation of each fixed-step method from the
 adaptive exact-trace solve (rtol=atol=1e-5, the reference's tolerance,
 treated as ground truth) on real test data under a trained model.
 
-Usage: python scripts/method_accuracy_study.py [ckpt_dir]  (TPU)
+Usage: python scripts/method_accuracy_study.py [ckpt_dir]
 """
 import sys
 from pathlib import Path
@@ -18,12 +18,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ecnf_tpu.cnf.build import build_cnf
-from ecnf_tpu.cnf.sampling import SolveConfig, get_log_prob
-from ecnf_tpu.targets.data import load_dw4
-from ecnf_tpu.training.checkpoints import get_latest_checkpoint, restore_checkpoint
-from ecnf_tpu.training.optim import build_optimizer
-from ecnf_tpu.training.state import init_training_state
+from ecnf_jax.cnf.build import build_cnf
+from ecnf_jax.cnf.sampling import SolveConfig, get_log_prob
+from ecnf_jax.targets.data import load_dw4
+from ecnf_jax.training.checkpoints import get_latest_checkpoint, restore_checkpoint
+from ecnf_jax.training.optim import build_optimizer
+from ecnf_jax.training.state import init_training_state
 
 CKPT_DIR = sys.argv[1] if len(sys.argv) > 1 else "/tmp/dw4_rk4_study/model_checkpoints"
 N_TEST = 256

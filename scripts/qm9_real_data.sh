@@ -3,10 +3,10 @@
 # moment network egress exists):
 #   1. remove the synthetic stand-ins (load_qm9 refuses them by default),
 #   2. download + process GDB9 via the torch-free pipeline
-#      (`ecnf_tpu/targets/qm9.py`; identical seed-0 splits to the
+#      (`ecnf_jax/targets/qm9.py`; identical seed-0 splits to the
 #      reference's `qm9_download_data/prepare/qm9.py`),
 #   3. train the full flagship config (16k iterations, EMA, bf16,
-#      grouped dispatch — ~2.3 h on one v5e chip per the synthetic soak),
+#      grouped dispatch),
 #   4. the run's final eval (EMA weights, Hutchinson K=4 log-prob on the
 #      real test split) is the REAL QM9 test NLL — record it in
 #      BASELINE.md "Trained-model quality (QM9)".
@@ -21,7 +21,7 @@ done
 
 echo "== 2/3 download + process GDB9 (figshare; needs egress) =="
 python - << 'EOF'
-from ecnf_tpu.targets.qm9 import qm9pos_download_and_save_data
+from ecnf_jax.targets.qm9 import qm9pos_download_and_save_data
 qm9pos_download_and_save_data(base_path="data")
 EOF
 

@@ -21,7 +21,7 @@ as argv[1]); falls back to random init (printed) if none exists — the
 stepper-agreement question is still meaningful there, the field is just
 untrained.
 
-Usage: python scripts/qm9_stepper_study.py [ckpt_dir]   (TPU)
+Usage: python scripts/qm9_stepper_study.py [ckpt_dir] 
 """
 import sys
 import time
@@ -33,11 +33,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ecnf_tpu.cnf.build import build_cnf
-from ecnf_tpu.cnf.sampling import SolveConfig, get_log_prob, sample_and_log_prob_cnf
-from ecnf_tpu.training.checkpoints import get_latest_checkpoint, restore_checkpoint
-from ecnf_tpu.training.optim import build_optimizer
-from ecnf_tpu.training.state import init_training_state
+from ecnf_jax.cnf.build import build_cnf
+from ecnf_jax.cnf.sampling import SolveConfig, get_log_prob, sample_and_log_prob_cnf
+from ecnf_jax.training.checkpoints import get_latest_checkpoint, restore_checkpoint
+from ecnf_jax.training.optim import build_optimizer
+from ecnf_jax.training.state import init_training_state
 
 CKPT_DIR = sys.argv[1] if len(sys.argv) > 1 else "runs/qm9_soak_g64/model_checkpoints"
 N_AGREE = 128   # probe-identical hutch-agreement batch

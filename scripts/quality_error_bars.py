@@ -25,7 +25,7 @@ Reference eval semantics: `ecnf/utils/evaluation.py:10-22` (forward ESS),
 `setup_training.py:166-185` (reverse ESS over model samples),
 `:190-218` (test NLL).
 
-Usage (TPU):
+Usage (on the GPU):
   python scripts/quality_error_bars.py dw4  runs/dw4_seed0/model_checkpoints
   python scripts/quality_error_bars.py lj13 runs/lj13_r4/model_checkpoints \
       --rv-samples 10000 --json measurements/r5/lj13_errbars.json
@@ -38,21 +38,19 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from ecnf_tpu.utils.host_trace import ensure_host_cpu_backend, host_tracing
 
-ensure_host_cpu_backend()
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ecnf_tpu.cnf.build import build_cnf
-from ecnf_tpu.cnf.sampling import SolveConfig, get_log_prob, sample_and_log_prob_cnf
-from ecnf_tpu.targets.data import load_aldp, load_dw4, load_lj13
-from ecnf_tpu.targets.energies import double_well_log_prob, lennard_jones_log_prob
-from ecnf_tpu.training.checkpoints import get_latest_checkpoint, restore_checkpoint
-from ecnf_tpu.training.optim import build_optimizer
-from ecnf_tpu.training.state import init_training_state
+from ecnf_jax.cnf.build import build_cnf
+from ecnf_jax.cnf.sampling import SolveConfig, get_log_prob, sample_and_log_prob_cnf
+from ecnf_jax.targets.data import load_aldp, load_dw4, load_lj13
+from ecnf_jax.targets.energies import double_well_log_prob, lennard_jones_log_prob
+from ecnf_jax.training.checkpoints import get_latest_checkpoint, restore_checkpoint
+from ecnf_jax.training.optim import build_optimizer
+from ecnf_jax.training.state import init_training_state
 
 # Shipped reference configs (`examples/configs/{dw4,lj13}.yaml`).
 TARGETS = {
@@ -144,33 +142,32 @@ def main():
     cfg = SolveConfig(method=args.method,
                       use_fixed_step_size=args.fixed_step)
 
-    with host_tracing():
-        train, valid, test = t["load"]()
-        pos = test.positions[: t["test_size"]]
-        pos = pos - pos.mean(axis=1, keepdims=True)
-        test_flat = jnp.asarray(pos.reshape(len(pos), -1))
-        feats = jnp.asarray(
-            test.features[: t["test_size"]].reshape(len(pos), -1))
+    train, valid, test = t["load"]()
+    pos = test.positions[: t["test_size"]]
+    pos = pos - pos.mean(axis=1, keepdims=True)
+    test_flat = jnp.asarray(pos.reshape(len(pos), -1))
+    feats = jnp.asarray(
+        test.features[: t["test_size"]].reshape(len(pos), -1))
 
-        cnf = build_cnf(
-            n_frames=t["n_nodes"], dim=t["dim"], sigma_min=t["sigma_min"],
-            base_scale=t["base_scale"], n_blocks_egnn=t["n_blocks"],
-            mlp_units=t["mlp_units"], n_invariant_feat_hidden=t["hidden"],
-            time_embedding_dim=t["t_emb"], n_features=t.get("n_features", 1),
-            compute_dtype="bfloat16",
-        )
-        # Optimizer state must match the trainer's structure for restore
-        # (schedule on, per the shipped configs).
-        n_batches = t["train_size"] // t["batch"]
-        optimizer = build_optimizer(
-            1e-4, use_schedule=True, peak_lr=t.get("peak_lr", 1e-4),
-            end_lr=0.0, n_iter_warmup=t.get("warmup", 10),
-            n_iter_total=t["n_iter"] * n_batches,
-        )
-        state0 = init_training_state(
-            cnf, optimizer, jax.random.PRNGKey(0), test_flat[:2], feats[:2],
-            use_ema=t.get("use_ema", False),
-        )
+    cnf = build_cnf(
+        n_frames=t["n_nodes"], dim=t["dim"], sigma_min=t["sigma_min"],
+        base_scale=t["base_scale"], n_blocks_egnn=t["n_blocks"],
+        mlp_units=t["mlp_units"], n_invariant_feat_hidden=t["hidden"],
+        time_embedding_dim=t["t_emb"], n_features=t.get("n_features", 1),
+        compute_dtype="bfloat16",
+    )
+    # Optimizer state must match the trainer's structure for restore
+    # (schedule on, per the shipped configs).
+    n_batches = t["train_size"] // t["batch"]
+    optimizer = build_optimizer(
+        1e-4, use_schedule=True, peak_lr=t.get("peak_lr", 1e-4),
+        end_lr=0.0, n_iter_warmup=t.get("warmup", 10),
+        n_iter_total=t["n_iter"] * n_batches,
+    )
+    state0 = init_training_state(
+        cnf, optimizer, jax.random.PRNGKey(0), test_flat[:2], feats[:2],
+        use_ema=t.get("use_ema", False),
+    )
     latest = get_latest_checkpoint(args.ckpt_dir)
     assert latest, f"no checkpoint in {args.ckpt_dir}"
     print(f"restoring {latest}", flush=True)
@@ -184,9 +181,8 @@ def main():
     assert t["test_size"] % nll_chunk == 0
 
     approx = bool(t.get("approx", False))
-    with host_tracing():
-        nll_fn = jax.jit(lambda x, f, k: get_log_prob(
-            cnf, params, x, k, f, cfg=cfg, approx=approx))
+    nll_fn = jax.jit(lambda x, f, k: get_log_prob(
+        cnf, params, x, k, f, cfg=cfg, approx=approx))
     # Exact trace: one key (log_q deterministic).  Hutchinson (ALDP): the
     # per-point log_q is stochastic in the probe key, so run K keys and
     # report the mean-NLL spread across them alongside the point bootstrap.
@@ -246,10 +242,9 @@ def main():
     # ---- reverse ESS: K eval seeds x bootstrap within seed 0 ----
     rv_chunk = args.rv_chunk
     assert args.rv_samples % rv_chunk == 0
-    with host_tracing():
-        feats_rv = feats[:1].repeat(rv_chunk, 0)
-        rv_fn = jax.jit(lambda k: sample_and_log_prob_cnf(
-            cnf, params, k, rv_chunk, features=feats_rv, cfg=cfg))
+    feats_rv = feats[:1].repeat(rv_chunk, 0)
+    rv_fn = jax.jit(lambda k: sample_and_log_prob_cnf(
+        cnf, params, k, rv_chunk, features=feats_rv, cfg=cfg))
     rv_ess_per_seed = []
     log_w_rev_seed0 = None
     t0 = time.perf_counter()

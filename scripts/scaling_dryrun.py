@@ -24,10 +24,10 @@ jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
 
-from ecnf_tpu.cnf.build import build_cnf
-from ecnf_tpu.parallel.mesh import get_mesh, replicated, data_sharded
-from ecnf_tpu.training.optim import build_optimizer
-from ecnf_tpu.training.state import init_training_state, make_update_fn
+from ecnf_jax.cnf.build import build_cnf
+from ecnf_jax.parallel.mesh import get_mesh, replicated, data_sharded
+from ecnf_jax.training.optim import build_optimizer
+from ecnf_jax.training.state import init_training_state, make_update_fn
 
 PER_DEVICE_BATCH = 32
 N, DIM = 13, 3

@@ -10,7 +10,7 @@
 # LJ13 uses the rk4 fixed-step eval recipe during TRAINING for speed
 # (quality-validated equal in BASELINE.md: -38.32 vs -38.38, rv 0.068);
 # the error-bar EVALUATION afterwards uses the reference adaptive dopri5.
-# One TPU process at a time; each LJ13 run ~4.5 min, DW4 ~3 min.
+# One process per card at a time.
 set -euo pipefail
 cd "$(dirname "$0")/.."
 mkdir -p measurements/r5

@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ecnf_tpu.cnf.core import FlowMatchingCNF, optimal_transport_conditional_vf
-from ecnf_tpu.cnf.base import DiagGaussian, ZeroCoMGaussian
-from ecnf_tpu.cnf.sampling import (
+from ecnf_jax.cnf.core import FlowMatchingCNF, optimal_transport_conditional_vf
+from ecnf_jax.cnf.base import DiagGaussian, ZeroCoMGaussian
+from ecnf_jax.cnf.sampling import (
     SolveConfig,
     sample_cnf,
     get_log_prob,
@@ -79,7 +79,7 @@ class TestLinearFlow:
         np.testing.assert_allclose(log_q, log_q2, rtol=1e-3, atol=1e-3)
 
     def test_rk4_fixed_step_matches_closed_form(self):
-        # The TPU-native rk4 fixed-step option through the full
+        # The rk4 fixed-step option through the full
         # sample/log-prob surface (field + divergence in one solve).
         dim, a = 3, 0.5
         cnf = _linear_cnf(dim=dim, a=a)

@@ -9,14 +9,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ecnf_tpu.cnf.core import optimal_transport_conditional_vf
-from ecnf_tpu.cnf.base import (
+from ecnf_jax.cnf.core import optimal_transport_conditional_vf
+from ecnf_jax.cnf.base import (
     ZeroCoMGaussian,
     DiagGaussian,
     remove_mean,
     centre_gravity_zero_gaussian_log_likelihood,
 )
-from ecnf_tpu.ops.numerics import timestep_embedding, safe_norm, maybe_masked_mean
+from ecnf_jax.ops.numerics import timestep_embedding, safe_norm, maybe_masked_mean
 
 
 class TestOTPath:

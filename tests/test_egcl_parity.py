@@ -11,9 +11,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ecnf_tpu.models.egnn import EGCL
-from ecnf_tpu.ops.graph import get_senders_and_receivers_fully_connected
-from ecnf_tpu.ops.numerics import safe_norm
+from ecnf_jax.models.egnn import EGCL
+from ecnf_jax.ops.graph import get_senders_and_receivers_fully_connected
+from ecnf_jax.ops.numerics import safe_norm
 
 
 def _mlp_apply(params, x, activate_final):

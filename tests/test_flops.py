@@ -2,14 +2,13 @@
 
 Pins: dot_general formula (batched + plain), dtype bucketing, control-flow
 recursion (scan x length, while flagged, cond max), and a trace of the real
-LJ13 headline solve landing in the range the measured roofline model in
-docs/PERF.md derives by hand.
+LJ13 headline solve landing in the range a hand FLOP model derives.
 """
 import jax
 import jax.numpy as jnp
 import pytest
 
-from ecnf_tpu.ops.flops import FlopCount, count_fn_flops, mfu
+from ecnf_jax.ops.flops import FlopCount, count_fn_flops, mfu
 
 
 class TestDotGeneral:
@@ -109,31 +108,36 @@ class TestControlFlow:
         assert c.total == 2 * (2 * 4 * 16 * 16)
 
 
+H100 = "NVIDIA H100 80GB HBM3"
+
+
 class TestMfu:
     def test_unknown_device_none(self):
         assert mfu(FlopCount(f32=1e12), 1.0, "cpu") is None
+        # No peak is assumed for a kind that is not in the table.
+        assert mfu(FlopCount(bf16=1e12), 1.0, "NVIDIA H100 PCIe") is None
 
     def test_while_none(self):
-        assert mfu(FlopCount(bf16=1e12, has_while=True), 1.0, "TPU v5 lite") is None
+        assert mfu(FlopCount(bf16=1e12, has_while=True), 1.0, H100) is None
 
-    def test_v5e_value(self):
-        # 197e12 bf16 FLOPs in 2 s on one v5e chip -> 50% MFU.
-        got = mfu(FlopCount(bf16=197e12), 2.0, "TPU v5 lite")
+    def test_h100_value(self):
+        # 989e12 bf16 FLOPs in 2 s on one H100 -> 50% MFU.
+        got = mfu(FlopCount(bf16=989e12), 2.0, H100)
         assert got == pytest.approx(0.5)
 
     def test_mixed_roofline(self):
-        # f32 FLOPs are worth 4x bf16 time on the PERF.md convention.
-        got = mfu(FlopCount(bf16=197e12 / 2, f32=197e12 / 8), 1.0, "TPU v5 lite")
+        # f32 FLOPs run at the TF32 peak, half the bf16 rate.
+        got = mfu(FlopCount(bf16=989e12 / 2, f32=495e12 / 2), 1.0, H100)
         assert got == pytest.approx(0.5 + 0.5)
 
 
 class TestHeadlineProgram:
     def test_lj13_solve_flops_match_perf_model(self):
         """Trace (no compile) the real LJ13 exact-logprob rk4 solve and
-        check the counted FLOPs agree with docs/PERF.md's hand model:
+        check the counted FLOPs agree with a hand model:
         ~37 network streams x O(10^8) FLOP/sample x B x 80 rk4 stages."""
-        from ecnf_tpu.cnf.build import build_cnf
-        from ecnf_tpu.cnf.sampling import SolveConfig, sample_and_log_prob_cnf
+        from ecnf_jax.cnf.build import build_cnf
+        from ecnf_jax.cnf.sampling import SolveConfig, sample_and_log_prob_cnf
 
         B = 8
         cnf = build_cnf(
@@ -155,7 +159,7 @@ class TestHeadlineProgram:
         c = count_fn_flops(run, jax.random.PRNGKey(0))
         assert not c.has_while
         # 20 rk4 steps x 4 stages = 80 field evals; 37 streams
-        # (primal + 36 zero-CoM trace columns); docs/PERF.md puts one
+        # (primal + 36 zero-CoM trace columns); the hand model puts one
         # stream at ~84-133 MFLOP/sample -> total in [1.5e13, 5e13] at B=8.
         per_stream_sample = c.total / 80 / 37 / B
         assert 4e7 < per_stream_sample < 2.5e8, per_stream_sample

@@ -6,20 +6,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ecnf_tpu.training.config import (
+from ecnf_jax.training.config import (
     ExperimentConfig,
     load_config,
     apply_overrides,
     config_to_dict,
 )
-from ecnf_tpu.training.checkpoints import (
+from ecnf_jax.training.checkpoints import (
     get_latest_checkpoint,
     parse_checkpoint_iteration,
     save_checkpoint,
     restore_checkpoint,
 )
-from ecnf_tpu.training.loggers import ListLogger, CSVLogger, setup_logger
-from ecnf_tpu.training.loop import TrainConfig, run_training, _schedule
+from ecnf_jax.training.loggers import ListLogger, CSVLogger, setup_logger
+from ecnf_jax.training.loop import TrainConfig, run_training, _schedule
 
 
 class TestConfig:
@@ -58,7 +58,7 @@ training:
         assert cfg.flow.network.n_blocks_egnn == 7
 
     def test_hutchinson_probes_override(self):
-        # TPU-native eval knob (reference is fixed at one probe,
+        # Eval knob with no reference analogue (reference is fixed at one probe,
         # `ecnf/cnf/sample_and_log_prob.py:55`).
         cfg = load_config(overrides=["training.hutchinson_probes=4"])
         assert cfg.training.hutchinson_probes == 4

@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ecnf_tpu.targets.mcmc import run_hmc, icosahedron_with_center
-from ecnf_tpu.targets.energies import double_well_log_prob
+from ecnf_jax.targets.mcmc import run_hmc, icosahedron_with_center
+from ecnf_jax.targets.energies import double_well_log_prob
 
 
 class TestHMC:
@@ -94,19 +94,19 @@ class TestDiagnostics:
         return np.random.default_rng(seed).normal(size=(c, s))
 
     def test_split_rhat_iid_near_one(self):
-        from ecnf_tpu.targets.diagnostics import split_rhat
+        from ecnf_jax.targets.diagnostics import split_rhat
 
         assert abs(split_rhat(self._iid_chains()) - 1.0) < 0.02
 
     def test_split_rhat_detects_disagreeing_chains(self):
-        from ecnf_tpu.targets.diagnostics import split_rhat
+        from ecnf_jax.targets.diagnostics import split_rhat
 
         x = self._iid_chains()
         x[0] += 5.0  # one chain stuck in a different mode
         assert split_rhat(x) > 1.2
 
     def test_split_rhat_detects_nonstationarity(self):
-        from ecnf_tpu.targets.diagnostics import split_rhat
+        from ecnf_jax.targets.diagnostics import split_rhat
 
         # Every chain drifts identically: between-half variance blows up
         # even though the chains agree with each other.
@@ -114,14 +114,14 @@ class TestDiagnostics:
         assert split_rhat(x) > 1.2
 
     def test_bulk_ess_iid_close_to_n(self):
-        from ecnf_tpu.targets.diagnostics import bulk_ess
+        from ecnf_jax.targets.diagnostics import bulk_ess
 
         x = self._iid_chains(c=8, s=500)
         ess = bulk_ess(x)
         assert 0.5 * x.size < ess < 1.6 * x.size
 
     def test_bulk_ess_correlated_much_smaller(self):
-        from ecnf_tpu.targets.diagnostics import bulk_ess
+        from ecnf_jax.targets.diagnostics import bulk_ess
 
         rng = np.random.default_rng(1)
         c, s, rho = 8, 800, 0.97
@@ -132,7 +132,7 @@ class TestDiagnostics:
         assert bulk_ess(x) < 0.15 * x.size
 
     def test_mean_pairwise_distance(self):
-        from ecnf_tpu.targets.diagnostics import mean_pairwise_distance
+        from ecnf_jax.targets.diagnostics import mean_pairwise_distance
 
         # Unit square: 4 sides of 1 + 2 diagonals of sqrt(2), mean over 6.
         square = np.array(
@@ -142,7 +142,7 @@ class TestDiagnostics:
         np.testing.assert_allclose(mean_pairwise_distance(square), [expect])
 
     def test_mcmc_diagnostics_report(self):
-        from ecnf_tpu.targets.diagnostics import mcmc_diagnostics
+        from ecnf_jax.targets.diagnostics import mcmc_diagnostics
 
         rng = np.random.default_rng(2)
         data = rng.normal(size=(8 * 100, 4, 2))
@@ -154,7 +154,7 @@ class TestDiagnostics:
         assert rep["rhat_energy"] < 1.05
 
     def test_generation_gate_rejects_stuck_chains(self):
-        from ecnf_tpu.targets.data import _gate_on_mixing
+        from ecnf_jax.targets.data import _gate_on_mixing
 
         rng = np.random.default_rng(3)
         data = rng.normal(size=(8 * 100, 4, 2))

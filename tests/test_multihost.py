@@ -29,7 +29,7 @@ class TestMaybeInitializeDistributed:
 
     @pytest.fixture(autouse=True)
     def _clean_env(self, monkeypatch):
-        from ecnf_tpu.parallel import distributed as dist
+        from ecnf_jax.parallel import distributed as dist
 
         for var in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID"):
             monkeypatch.delenv(var, raising=False)
@@ -58,7 +58,7 @@ class TestMaybeInitializeDistributed:
     ):
         import jax
 
-        from ecnf_tpu.parallel import distributed as dist
+        from ecnf_jax.parallel import distributed as dist
 
         calls = []
         monkeypatch.setattr(
@@ -82,7 +82,7 @@ class TestMaybeInitializeDistributed:
     def test_env_vars_resolve_args(self, monkeypatch, _no_backend_touch):
         import jax
 
-        from ecnf_tpu.parallel import distributed as dist
+        from ecnf_jax.parallel import distributed as dist
 
         calls = []
         monkeypatch.setattr(
@@ -102,7 +102,7 @@ class TestMaybeInitializeDistributed:
     def test_noop_without_coordinator(self, monkeypatch, _no_backend_touch):
         import jax
 
-        from ecnf_tpu.parallel import distributed as dist
+        from ecnf_jax.parallel import distributed as dist
 
         monkeypatch.setattr(
             dist, "_distributed_client_active", lambda: False
@@ -119,7 +119,7 @@ class TestMaybeInitializeDistributed:
         jax.process_count() (the round-3 footgun)."""
         import jax
 
-        from ecnf_tpu.parallel import distributed as dist
+        from ecnf_jax.parallel import distributed as dist
 
         monkeypatch.setattr(
             dist, "_distributed_client_active", lambda: True
@@ -134,7 +134,7 @@ class TestMaybeInitializeDistributed:
     def test_client_probe_reads_jax_internals(self):
         """`_distributed_client_active` reflects the real global state in
         this (never-initialized) test process."""
-        from ecnf_tpu.parallel import distributed as dist
+        from ecnf_jax.parallel import distributed as dist
 
         assert dist._distributed_client_active() is False
 
@@ -146,7 +146,7 @@ class TestMaybeInitializeDistributed:
         module-level flag decides first (ADVICE r4)."""
         import jax
 
-        from ecnf_tpu.parallel import distributed as dist
+        from ecnf_jax.parallel import distributed as dist
 
         calls = []
         monkeypatch.setattr(
@@ -172,7 +172,7 @@ class TestMaybeInitializeDistributed:
         flag is set so we never call initialize again (ADVICE r4)."""
         import jax
 
-        from ecnf_tpu.parallel import distributed as dist
+        from ecnf_jax.parallel import distributed as dist
 
         calls = []
 
@@ -200,7 +200,7 @@ class TestMaybeInitializeDistributed:
     ):
         import jax
 
-        from ecnf_tpu.parallel import distributed as dist
+        from ecnf_jax.parallel import distributed as dist
 
         def raise_other(**kw):
             raise RuntimeError("coordinator unreachable")

@@ -4,8 +4,8 @@ import io
 import numpy as np
 import pytest
 
-from ecnf_tpu.targets.qm9 import process_xyz_gdb9
-from ecnf_tpu.targets.native import parse_xyz_native, get_parser
+from ecnf_jax.targets.qm9 import process_xyz_gdb9
+from ecnf_jax.targets.native import parse_xyz_native, get_parser
 
 # Synthetic GDB9-style xyz file, including the "*^" exponent quirk.
 XYZ = b"""5

@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ecnf_tpu.ops.ode import odeint_adaptive, odeint_fixed, odeint
-from ecnf_tpu.ops.divergence import exact_divergence, hutchinson_divergence
+from ecnf_jax.ops.ode import odeint_adaptive, odeint_fixed, odeint
+from ecnf_jax.ops.divergence import exact_divergence, hutchinson_divergence
 
 
 def linear_field(t, y):
@@ -199,8 +199,8 @@ class TestDivergence:
         )
 
     def test_sharded_columns_match_unsharded(self):
-        from ecnf_tpu.ops.divergence import sharded_value_and_exact_divergence
-        from ecnf_tpu.parallel import get_mesh
+        from ecnf_jax.ops.divergence import sharded_value_and_exact_divergence
+        from ecnf_jax.parallel import get_mesh
 
         f, _ = self._field()
         x = jax.random.normal(jax.random.PRNGKey(5), (3, 6))
@@ -213,8 +213,8 @@ class TestDivergence:
         np.testing.assert_allclose(div, div_ref, rtol=1e-5)
 
     def test_2d_mesh_batch_and_columns(self):
-        from ecnf_tpu.ops.divergence import sharded_value_and_exact_divergence
-        from ecnf_tpu.parallel import get_mesh_2d, DATA_AXIS, TRACE_AXIS
+        from ecnf_jax.ops.divergence import sharded_value_and_exact_divergence
+        from ecnf_jax.parallel import get_mesh_2d, DATA_AXIS, TRACE_AXIS
 
         f, _ = self._field()
         x = jax.random.normal(jax.random.PRNGKey(6), (4, 6))
@@ -230,9 +230,9 @@ class TestDivergence:
 
     def test_sharded_columns_in_log_prob_solve(self):
         """The sharded trace composes with the full reverse ODE solve."""
-        from ecnf_tpu.cnf.build import build_mlp_cnf
-        from ecnf_tpu.cnf.sampling import get_log_prob, SolveConfig
-        from ecnf_tpu.parallel import get_mesh
+        from ecnf_jax.cnf.build import build_mlp_cnf
+        from ecnf_jax.cnf.sampling import get_log_prob, SolveConfig
+        from ecnf_jax.parallel import get_mesh
 
         cnf = build_mlp_cnf(dim=2, sigma_min=0.01, base_scale=1.0, features=(16,))
         params = cnf.init(
@@ -262,7 +262,7 @@ class TestDivergence:
         # When the sketch covers the Jacobian's range, the residual
         # operator (I-P) J (I-P) is zero and Hutch++ is *deterministic*:
         # tr(Q^T J Q) alone equals tr(J), for any probes.
-        from ecnf_tpu.ops.divergence import value_and_hutchpp_divergence
+        from ecnf_jax.ops.divergence import value_and_hutchpp_divergence
 
         D, r = 12, 3
         U = jax.random.normal(jax.random.PRNGKey(0), (D, r))
@@ -287,7 +287,7 @@ class TestDivergence:
     def test_hutchpp_unbiased_and_lower_variance(self):
         # Decaying-spectrum Jacobian: at a matched JVP budget Hutch++
         # (2*m1 + m2 JVPs) must beat plain Hutchinson (K JVPs) on RMSE.
-        from ecnf_tpu.ops.divergence import (
+        from ecnf_jax.ops.divergence import (
             value_and_hutchpp_divergence,
             value_and_multi_probe_hutchinson,
         )
@@ -324,8 +324,8 @@ class TestDivergence:
     def test_hutchpp_in_log_prob_solve(self):
         # End-to-end dispatch: hutchpp_sketch>0 routes the approx solve
         # through Hutch++; finite result, unbiased across keys vs exact.
-        from ecnf_tpu.cnf.build import build_mlp_cnf
-        from ecnf_tpu.cnf.sampling import get_log_prob, SolveConfig
+        from ecnf_jax.cnf.build import build_mlp_cnf
+        from ecnf_jax.cnf.sampling import get_log_prob, SolveConfig
 
         cnf = build_mlp_cnf(dim=4, sigma_min=0.01, base_scale=1.0, features=(16,))
         x = jax.random.normal(jax.random.PRNGKey(0), (6, 4)) * 0.5
@@ -353,7 +353,7 @@ class TestExactTracePlan:
     N, DIM = 5, 3
 
     def _cnf_and_params(self, final_scaling=1.37):
-        from ecnf_tpu.cnf.build import build_cnf
+        from ecnf_jax.cnf.build import build_cnf
 
         cnf = build_cnf(
             n_frames=self.N, dim=self.DIM, sigma_min=0.01, base_scale=1.0,
@@ -370,7 +370,7 @@ class TestExactTracePlan:
         return cnf, params, x, feats
 
     def test_zero_com_basis_orthonormal_and_complete(self):
-        from ecnf_tpu.ops.divergence import zero_com_trace_basis
+        from ecnf_jax.ops.divergence import zero_com_trace_basis
 
         basis = zero_com_trace_basis(self.N, self.DIM)  # [12, 15]
         K, D = basis.shape
@@ -397,7 +397,7 @@ class TestExactTracePlan:
             np.testing.assert_allclose(jv, -s * tangent, rtol=1e-5, atol=1e-5)
 
     def test_plan_trace_matches_full_trace(self):
-        from ecnf_tpu.ops.divergence import value_and_exact_divergence
+        from ecnf_jax.ops.divergence import value_and_exact_divergence
 
         cnf, params, x, feats = self._cnf_and_params()
         t = jnp.full((x.shape[0],), 0.7)
@@ -411,7 +411,7 @@ class TestExactTracePlan:
         np.testing.assert_allclose(div_plan, div_full, rtol=1e-5, atol=1e-5)
 
     def test_log_prob_plan_on_equals_off(self):
-        from ecnf_tpu.cnf.sampling import SolveConfig, get_log_prob
+        from ecnf_jax.cnf.sampling import SolveConfig, get_log_prob
 
         cnf, params, x, feats = self._cnf_and_params()
         key = jax.random.PRNGKey(3)
@@ -424,11 +424,11 @@ class TestExactTracePlan:
         np.testing.assert_allclose(lp_on, lp_off, rtol=1e-5, atol=1e-4)
 
     def test_sharded_columns_with_plan_basis(self):
-        from ecnf_tpu.ops.divergence import (
+        from ecnf_jax.ops.divergence import (
             sharded_value_and_exact_divergence,
             value_and_exact_divergence,
         )
-        from ecnf_tpu.parallel import get_mesh
+        from ecnf_jax.parallel import get_mesh
 
         cnf, params, x, feats = self._cnf_and_params()
         t = jnp.full((x.shape[0],), 0.5)

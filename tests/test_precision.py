@@ -4,14 +4,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ecnf_tpu.cnf.build import build_cnf
-from ecnf_tpu.cnf.sampling import SolveConfig, get_log_prob
-from ecnf_tpu.models.egnn import EGNN
-from ecnf_tpu.ops.divergence import (
+from ecnf_jax.cnf.build import build_cnf
+from ecnf_jax.cnf.sampling import SolveConfig, get_log_prob
+from ecnf_jax.models.egnn import EGNN
+from ecnf_jax.ops.divergence import (
     exact_divergence,
     value_and_multi_probe_hutchinson,
 )
-from ecnf_tpu.utils.test_utils import random_rotation_matrix
+from ecnf_jax.utils.test_utils import random_rotation_matrix
 
 
 def _mk_cnf(compute_dtype=None):

@@ -1,6 +1,6 @@
 """QM9 pipeline END-TO-END rehearsal on a miniature GDB9-format fixture.
 
-The real pipeline (`ecnf_tpu/targets/qm9.py`) needs the 82 MB figshare
+The real pipeline (`ecnf_jax/targets/qm9.py`) needs the 82 MB figshare
 tarball; this drives the FULL `qm9pos_download_and_save_data` path —
 download (mocked to deliver the fixture), exclusion parsing, seed-0
 splits, tar extraction, xyz parsing (native C++ parser and the Python
@@ -16,8 +16,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-import ecnf_tpu.targets.qm9 as qm9
-from ecnf_tpu.targets.data import load_qm9
+import ecnf_jax.targets.qm9 as qm9
+from ecnf_jax.targets.data import load_qm9
 
 # Miniature GDB9: 50 molecules, 5 excluded, splits 20 train / 4 test (10%
 # of 45, floored) / 21 valid.
@@ -177,7 +177,7 @@ class TestQm9EndToEnd:
             tmp_path / "native", fixture_files, monkeypatch
         )
         # Force the pure-Python parser and re-run.
-        import ecnf_tpu.targets.native as native
+        import ecnf_jax.targets.native as native
 
         monkeypatch.setattr(native, "get_parser", lambda: None)
         base_py = self._run_pipeline(tmp_path / "py", fixture_files, monkeypatch)

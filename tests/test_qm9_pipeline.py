@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from ecnf_tpu.targets.qm9 import gen_splits_gdb9, N_EXCLUDED, N_GDB9, N_TRAIN
-from ecnf_tpu.targets.qm9_extras import (
+from ecnf_jax.targets.qm9 import gen_splits_gdb9, N_EXCLUDED, N_GDB9, N_TRAIN
+from ecnf_jax.targets.qm9_extras import (
     ProcessedDataset,
     add_thermo_targets,
     batch_stack,

@@ -1,19 +1,18 @@
-"""Hand-linearized EGNN trace (`ops/pallas/tangent_kernel.py`) vs autodiff.
+"""Hand-linearized EGNN trace (`ops/tangent.py`) vs autodiff.
 
 The structured tangent path must reproduce `jax.linearize` exactly in f32
 (same math, reference semantics `ecnf/cnf/sample_and_log_prob.py:64-66`)
-across model shapes, in both the pure-XLA and the (interpret-mode) Pallas
-kernel variants, and end-to-end through `get_log_prob`.
+across model shapes, and end-to-end through `get_log_prob`.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ecnf_tpu.cnf.build import build_cnf
-from ecnf_tpu.cnf.sampling import SolveConfig, get_log_prob
-from ecnf_tpu.ops.divergence import value_and_exact_divergence
-from ecnf_tpu.ops.pallas.tangent_kernel import egnn_value_and_trace
+from ecnf_jax.cnf.build import build_cnf
+from ecnf_jax.cnf.sampling import SolveConfig, get_log_prob
+from ecnf_jax.ops.divergence import value_and_exact_divergence
+from ecnf_jax.ops.tangent import egnn_value_and_trace
 
 
 def _setup(n, dim, blocks, units, cdt=None, B=6):
@@ -36,8 +35,7 @@ class TestStructuredTangent:
         "n,dim,blocks,units",
         [(5, 3, 2, (32, 32)), (4, 2, 3, (32, 32, 32)), (5, 3, 2, (32,) * 4)],
     )
-    @pytest.mark.parametrize("use_kernel", [False, True])
-    def test_matches_linearize_f32(self, n, dim, blocks, units, use_kernel):
+    def test_matches_linearize_f32(self, n, dim, blocks, units):
         cnf, params, x, t, feats = _setup(n, dim, blocks, units)
         basis, off = cnf.exact_trace_plan(params)
         f = lambda xb: cnf.apply(params, xb, t, feats)
@@ -48,7 +46,6 @@ class TestStructuredTangent:
             params, x, t, feats, basis,
             n_nodes=n, dim=dim, n_blocks=blocks, mlp_units=units,
             time_embedding_dim=8, trace_offset=off,
-            use_kernel=use_kernel, batch_tile=2, interpret=True,
         )
         np.testing.assert_allclose(v, v_ref, atol=1e-6)
         np.testing.assert_allclose(div, div_ref, rtol=1e-4, atol=1e-4)
@@ -62,7 +59,7 @@ class TestStructuredTangent:
         _, div = egnn_value_and_trace(
             params, x, t, feats, jnp.eye(D),
             n_nodes=5, dim=3, n_blocks=2, mlp_units=(32, 32),
-            time_embedding_dim=8, use_kernel=False,
+            time_embedding_dim=8,
         )
         np.testing.assert_allclose(div, div_ref, rtol=1e-4, atol=1e-4)
 
@@ -77,7 +74,6 @@ class TestStructuredTangent:
             params, x, t, feats, basis,
             n_nodes=5, dim=3, n_blocks=2, mlp_units=(32, 32),
             time_embedding_dim=8, compute_dtype="bfloat16", trace_offset=off,
-            use_kernel=False,
         )
         np.testing.assert_allclose(v, v_ref, atol=1e-6)  # same primal math
         np.testing.assert_allclose(div, div_ref, rtol=2e-2, atol=2e-2)
@@ -87,7 +83,7 @@ class TestStructuredTangent:
         # divergence is rotation-invariant — a physics-grounded check of the
         # whole tangent stack (seeds, geometry tangent, epilogue).
         cnf, params, x, t, feats = _setup(5, 3, 2, (32, 32))
-        from ecnf_tpu.utils.test_utils import random_rotation_matrix
+        from ecnf_jax.utils.test_utils import random_rotation_matrix
 
         R = random_rotation_matrix(jax.random.PRNGKey(7), 3)
         basis, off = cnf.exact_trace_plan(params)
@@ -96,7 +92,7 @@ class TestStructuredTangent:
             return egnn_value_and_trace(
                 params, xb, t, feats, basis,
                 n_nodes=5, dim=3, n_blocks=2, mlp_units=(32, 32),
-                time_embedding_dim=8, trace_offset=off, use_kernel=False,
+                time_embedding_dim=8, trace_offset=off,
             )[1]
 
         x_rot = (x.reshape(-1, 5, 3) @ R.T).reshape(x.shape)
@@ -112,15 +108,14 @@ class TestStructuredTangent:
             return egnn_value_and_trace(
                 params, xb, t, feats, basis,
                 n_nodes=5, dim=3, n_blocks=2, mlp_units=(32, 32),
-                time_embedding_dim=8, trace_offset=off, use_kernel=False,
+                time_embedding_dim=8, trace_offset=off,
             )[1]
 
         perm = jnp.array([2, 0, 4, 1, 3])
         x_perm = x.reshape(-1, 5, 3)[:, perm].reshape(x.shape)
         np.testing.assert_allclose(div_of(x_perm), div_of(x), rtol=1e-4)
 
-    @pytest.mark.parametrize("use_kernel", [False, True])
-    def test_per_sample_probes_match_jvp(self, use_kernel):
+    def test_per_sample_probes_match_jvp(self):
         # Hutchinson form: per-sample probe directions [K, B, D] (raw
         # Gaussian, NOT zero-CoM) must give eps . (J eps) exactly — the
         # translation component is reconstructed analytically.
@@ -128,14 +123,13 @@ class TestStructuredTangent:
         B, D = x.shape
         eps = jax.random.normal(jax.random.PRNGKey(9), (3, B, D))
         f = lambda xb: cnf.apply(params, xb, t, feats)
-        from ecnf_tpu.ops.divergence import value_and_multi_probe_hutchinson
+        from ecnf_jax.ops.divergence import value_and_multi_probe_hutchinson
 
         v_ref, div_ref = value_and_multi_probe_hutchinson(f, x, eps)
         v, div = egnn_value_and_trace(
             params, x, t, feats, eps,
             n_nodes=5, dim=3, n_blocks=2, mlp_units=(32, 32),
-            time_embedding_dim=8, use_kernel=use_kernel, batch_tile=2,
-            interpret=True,
+            time_embedding_dim=8,
         )
         np.testing.assert_allclose(v, v_ref, atol=1e-6)
         np.testing.assert_allclose(div / 3.0, div_ref, rtol=1e-4, atol=1e-4)

@@ -8,15 +8,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ecnf_tpu.ops.graph import get_senders_and_receivers_fully_connected
-from ecnf_tpu.ops.numerics import safe_norm
-from ecnf_tpu.targets.energies import (
+from ecnf_jax.ops.graph import get_senders_and_receivers_fully_connected
+from ecnf_jax.ops.numerics import safe_norm
+from ecnf_jax.targets.energies import (
     double_well_energy,
     double_well_log_prob,
     lennard_jones_energy,
     lennard_jones_log_prob,
 )
-from ecnf_tpu.targets.mog import MoGTarget
+from ecnf_jax.targets.mog import MoGTarget
 
 
 def _dw_energy_edge_list(x, a=0.0, b=-4.0, c=0.9, d0=4.0, tau=1.0):
@@ -112,7 +112,7 @@ class TestALDPLoader:
     def test_reads_h5(self):
         from pathlib import Path
 
-        from ecnf_tpu.targets.data import load_aldp
+        from ecnf_jax.targets.data import load_aldp
 
         path = Path(__file__).resolve().parent.parent / "data" / "aldp_500K_train_mini.h5"
         if not path.exists():
@@ -130,7 +130,7 @@ class TestALDPLoader:
         serve disjoint train/test splits (examples/configs/aldp_soak.yaml)."""
         from pathlib import Path
 
-        from ecnf_tpu.targets.data import load_aldp
+        from ecnf_jax.targets.data import load_aldp
 
         path = Path(__file__).resolve().parent.parent / "data" / "aldp_500K_train_mini.h5"
         if not path.exists():
@@ -175,7 +175,7 @@ class TestQM9SyntheticGuard:
 
     @staticmethod
     def _write_standins(d, with_marker=True):
-        from ecnf_tpu.targets.data import SYNTHETIC_QM9_MARKER
+        from ecnf_jax.targets.data import SYNTHETIC_QM9_MARKER
 
         rng = np.random.default_rng(0)
         for name, n in [("train", 8), ("valid", 4), ("test", 4)]:
@@ -185,7 +185,7 @@ class TestQM9SyntheticGuard:
             (d / SYNTHETIC_QM9_MARKER).write_text("synthetic stand-in\n")
 
     def test_marker_refuses_by_default(self, tmp_path, monkeypatch):
-        from ecnf_tpu.targets.data import load_qm9
+        from ecnf_jax.targets.data import load_qm9
 
         monkeypatch.delenv("ECNF_ALLOW_SYNTHETIC_QM9", raising=False)
         self._write_standins(tmp_path)
@@ -193,7 +193,7 @@ class TestQM9SyntheticGuard:
             load_qm9(path=tmp_path)
 
     def test_opt_in_kwarg(self, tmp_path, monkeypatch):
-        from ecnf_tpu.targets.data import load_qm9
+        from ecnf_jax.targets.data import load_qm9
 
         monkeypatch.delenv("ECNF_ALLOW_SYNTHETIC_QM9", raising=False)
         self._write_standins(tmp_path)
@@ -201,7 +201,7 @@ class TestQM9SyntheticGuard:
         assert train.positions.shape == (8, 19, 3)
 
     def test_opt_in_env(self, tmp_path, monkeypatch):
-        from ecnf_tpu.targets.data import load_qm9
+        from ecnf_jax.targets.data import load_qm9
 
         self._write_standins(tmp_path)
         monkeypatch.setenv("ECNF_ALLOW_SYNTHETIC_QM9", "1")
@@ -215,7 +215,7 @@ class TestQM9SyntheticGuard:
     def test_env_opt_in_requires_explicit_truthy(self, tmp_path, monkeypatch):
         """Only an explicit truthy value opts in — "false"/"no"/garbage
         must refuse, not silently consent (ADVICE r4)."""
-        from ecnf_tpu.targets.data import load_qm9
+        from ecnf_jax.targets.data import load_qm9
 
         self._write_standins(tmp_path)
         for bad in ("false", "no", "off", "nope"):
@@ -229,7 +229,7 @@ class TestQM9SyntheticGuard:
 
     def test_unmarked_data_loads_freely(self, tmp_path, monkeypatch):
         """Fixture/real data without the marker is untouched by the guard."""
-        from ecnf_tpu.targets.data import load_qm9
+        from ecnf_jax.targets.data import load_qm9
 
         monkeypatch.delenv("ECNF_ALLOW_SYNTHETIC_QM9", raising=False)
         self._write_standins(tmp_path, with_marker=False)
@@ -239,8 +239,8 @@ class TestQM9SyntheticGuard:
     def test_stale_marker_refuses_before_download(self, tmp_path, monkeypatch):
         """A stale marker with MISSING .npy files must refuse up front —
         never trigger (and then reject) an expensive real download."""
-        from ecnf_tpu.targets import qm9 as qm9_mod
-        from ecnf_tpu.targets.data import load_qm9, SYNTHETIC_QM9_MARKER
+        from ecnf_jax.targets import qm9 as qm9_mod
+        from ecnf_jax.targets.data import load_qm9, SYNTHETIC_QM9_MARKER
 
         monkeypatch.delenv("ECNF_ALLOW_SYNTHETIC_QM9", raising=False)
         (tmp_path / SYNTHETIC_QM9_MARKER).write_text("stale marker\n")

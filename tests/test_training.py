@@ -9,18 +9,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ecnf_tpu.cnf.build import build_mlp_cnf, build_cnf
-from ecnf_tpu.cnf.sampling import SolveConfig, get_log_prob, sample_cnf
-from ecnf_tpu.targets.mog import MoGTarget
-from ecnf_tpu.training.state import init_training_state, make_update_fn
-from ecnf_tpu.training.optim import build_optimizer
-from ecnf_tpu.training.evaluation import (
+from ecnf_jax.cnf.build import build_mlp_cnf, build_cnf
+from ecnf_jax.cnf.sampling import SolveConfig, get_log_prob, sample_cnf
+from ecnf_jax.targets.mog import MoGTarget
+from ecnf_jax.training.state import init_training_state, make_update_fn
+from ecnf_jax.training.optim import build_optimizer
+from ecnf_jax.training.evaluation import (
     calculate_forward_ess,
     calculate_reverse_ess,
     setup_padded_reshaped_data,
     eval_fn,
 )
-from ecnf_tpu.parallel.mesh import get_mesh, replicated, data_sharded
+from ecnf_jax.parallel.mesh import get_mesh, replicated, data_sharded
 
 
 class TestUpdateStep:
@@ -300,7 +300,7 @@ class TestMicrobatch:
 
     def test_matches_handrolled_mean_of_chunk_grads(self):
         import optax
-        from ecnf_tpu.cnf.loss import flow_matching_loss_fn
+        from ecnf_jax.cnf.loss import flow_matching_loss_fn
 
         cnf, opt, state, update = self._setup(microbatch=2)
         data = jax.random.normal(jax.random.PRNGKey(5), (8, 2))
@@ -369,7 +369,7 @@ class TestMicrobatch:
         state = init_training_state(
             cnf, opt, jax.random.PRNGKey(0), x[:2], feats[:2])
         update = make_update_fn(cnf, opt, microbatch=2)
-        from ecnf_tpu.cnf.loss import flow_matching_loss_fn
+        from ecnf_jax.cnf.loss import flow_matching_loss_fn
         new_state, info = update(state, x, feats)
 
         key, sub = jax.random.split(state.key)
